@@ -129,7 +129,7 @@ def test_distributed_grid_solve_pads_and_shards():
     prm = AMGParameters(cycle_type="v", dtype="float64")
     n_sd = int(np.prod([-(-d // 2 ** shard_depth) for d in dims2])) * 2
     prec, slots, nsl = setup_grid(A2, dims2, F=2, mask=mask2, params=prm,
-                                  dtype=jnp.float64, pallas=False)
+                                  dtype=jnp.float64)
     prec_s = shard_preconditioner(prec, dmesh, replicate_below=n_sd)
     # the divisible fine level must be genuinely row-sharded
     fine = prec_s.levels[0]
@@ -144,7 +144,7 @@ def test_distributed_grid_solve_pads_and_shards():
     assert res.converged and res.niters < 30
     from tpuamg.problems.solve import solve_system
     rep = solve_system(A, b, "metric_mono", sizes, params=prm, tol=1e-8,
-                       maxiter=60, grid=((17, 17), 2), pallas=False)
+                       maxiter=60, grid=((17, 17), 2))
     rel = np.linalg.norm(b - A.matvec(res.x)) / np.linalg.norm(b)
     assert rel < 1e-6
     np.testing.assert_allclose(res.x, rep.x, atol=1e-5)
@@ -173,7 +173,7 @@ def test_agglomerated_coarse_sharding():
     A2, b2, dims2, mask2 = pad_grid_problem(A, b, (17, 17), 2, 8 * 2)
     prm = AMGParameters(cycle_type="v", dtype="float64", coarse_dof=32)
     prec, slots, nsl = setup_grid(A2, dims2, F=2, mask=mask2, params=prm,
-                                  dtype=jnp.float64, pallas=False)
+                                  dtype=jnp.float64)
     sizes_lvl = [L.A.shape[0] for L in prec.levels]
     assert len(sizes_lvl) >= 3, sizes_lvl
     # thresholds chosen so all 3 tiers occur: level 0 fully sharded,
@@ -186,7 +186,7 @@ def test_agglomerated_coarse_sharding():
     assert any(s == (None, "po") for s in specs[1:]), specs
     assert specs[-1] == (), specs[-1]
 
-    Adia = grid_system(A2, slots, dtype=jnp.float64, pallas=False)
+    Adia = grid_system(A2, slots, dtype=jnp.float64)
     Adia = shard_dia(Adia, dmesh, row_sharded=False)  # replicate outer op
     bj = jnp.zeros(nsl).at[jnp.asarray(slots)].set(jnp.asarray(b2))
     res = pcg(dia_matvec_op(Adia), bj, M=as_operator(prec_s), tol=1e-8,
@@ -196,3 +196,34 @@ def test_agglomerated_coarse_sharding():
                           (17, 17), dims2, 2)
     rel = np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b)
     assert rel < 1e-6, rel
+
+
+@pytest.fixture(scope="module")
+def bidomain16():
+    from tpuamg.problems.bidomain import Params, get_mesh, get_system
+    from tpuamg.problems.solve import solve_system
+    p = Params(2.0, 3.0, 1e6)
+    data = mms.setup_bidomain_mms(p, dim=2)
+    A, b, sizes, _ = get_system(get_mesh(16, 2), data, p)
+    prm = AMGParameters(cycle_type="v", dtype="float64")
+    serial = solve_system(A, b, "metric_mono", sizes, params=prm, tol=1e-8,
+                          maxiter=100, dtype=jnp.float64,
+                          grid=((17, 17), 2))
+    return A, b, prm, serial
+
+
+@pytest.mark.parametrize("ndev", [1, 2, 4])
+def test_distributed_grid_matches_serial_iterations(bidomain16, ndev):
+    """The sharded grid path is exact: on 1, 2 and 4 devices it takes the
+    serial grid path's iteration count and returns its solution (ghost
+    padding differs with the device count and must not matter)."""
+    from tpuamg.dist.solve import distributed_grid_solve
+    A, b, prm, serial = bidomain16
+    mesh = device_mesh(devices=jax.devices()[:ndev])
+    res, _ = distributed_grid_solve(A, b, (17, 17), F=2, mesh=mesh,
+                                    params=prm, tol=1e-8, maxiter=100,
+                                    dtype=jnp.float64)
+    assert res.dist_info["ndev"] == ndev
+    assert res.converged and res.niters == serial.niters
+    diff = np.linalg.norm(res.x - serial.x) / np.linalg.norm(serial.x)
+    assert diff < 1e-9, diff

@@ -28,8 +28,8 @@ def test_gmg_fullmg_cheb(gamma):
                      "-smoother", "cheb"])
     niters = ksp[:, 1]
     assert np.all(niters <= 30), niters
-    # h-robustness (AMLI-accelerated window hierarchy; VERDICT round-2
-    # item 4): a plateau — growth over refinements stays below 1.4x and
+    # h-robustness (AMLI-accelerated window hierarchy): a plateau —
+    # growth over refinements stays below 1.4x and
     # the last refinement adds at most one iteration over the previous
     # (committed nrefs-5 tables show 11->15 flat; the round-3 1.35x
     # bound was written against the AMLI(3) variant and off by 0.15 it)

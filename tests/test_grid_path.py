@@ -100,3 +100,33 @@ def test_structured_morton_path():
     x = np.asarray(res.x)[slots]
     rel = np.linalg.norm(b - A.matvec(x)) / np.linalg.norm(b)
     assert rel < 1e-6
+
+
+@pytest.mark.parametrize("dtype,tol", [(jnp.float64, 1e-8),
+                                       (jnp.float32, 1e-5)])
+@pytest.mark.parametrize("cycle", ["v", "w"])
+def test_grid_pcg_against_ell_path(cycle, dtype, tol):
+    """Grid-path PCG (V and W cycles, f32 and f64) reaches the same
+    solution as the algebraic ELL path within a small multiple of its
+    iteration count (measured at n=16: grid 5-9, ELL 2-4)."""
+    from dataclasses import replace
+    from tpuamg.config import PRESETS
+    p = Params(2.0, 3.0, 1e6)
+    data = mms.setup_bidomain_mms(p, dim=2)
+    A, b, sizes, _ = get_system(get_mesh(16, 2), data, p)
+    idofs = np.arange(sizes[0], sum(sizes))
+    prm = replace(PRESETS["metric_schwarz"], cycle_type=cycle)
+    g = solve_system(A, b, "metric_mono", sizes, params=prm, tol=tol,
+                     maxiter=100, dtype=dtype, grid=((17, 17), 2))
+    e = solve_system(A, b, "metric_mono", sizes, idofs=idofs, params=prm,
+                     tol=tol, maxiter=100, dtype=dtype)
+    assert g.converged and e.converged
+    assert g.niters <= 2 * e.niters + 2, (g.niters, e.niters)
+    bound = 1e-12 if dtype == jnp.float64 else 1e-6
+    for rep in (g, e):
+        rel = np.linalg.norm(b - A.matvec(rep.x)) / np.linalg.norm(b)
+        assert rel < bound, rel
+    # the gamma=1e6 system's condition number turns a 1e-7 f32 residual
+    # into a ~3e-4 relative error in x
+    agree = 1e-8 if dtype == jnp.float64 else 1e-3
+    assert np.linalg.norm(g.x - e.x) / np.linalg.norm(e.x) < agree

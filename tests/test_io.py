@@ -1,5 +1,8 @@
 """IO-layer tests: dump/load round trip, .dat parsing, tables, VTU."""
+import os
+
 import numpy as np
+import pytest
 
 from tpuamg.sparse import HostCSR
 from tpuamg.io_utils import (dump_system, load_system, write_solution,
@@ -8,18 +11,57 @@ from tpuamg.io_utils import (dump_system, load_system, write_solution,
                              ResultWriter, print_red)
 
 
-def test_dump_load_roundtrip(tmp_path):
+@pytest.mark.parametrize("compact", [False, True])
+def test_dump_load_roundtrip(tmp_path, compact):
     rng = np.random.default_rng(1)
     n = 30
     d = rng.standard_normal((n, n)) * (rng.random((n, n)) < 0.2)
     A = HostCSR.from_dense(d)
     b = rng.standard_normal(n)
-    dump_system(A, b, (18, 12), str(tmp_path))
+    dump_system(A, b, (18, 12), str(tmp_path), compact=compact)
     A2, b2, idofs, idofs3d = load_system(str(tmp_path))
     np.testing.assert_allclose(A2.toarray(), A.toarray())
     np.testing.assert_allclose(b2, b)
     assert idofs.tolist() == list(range(18, 30))
     assert idofs3d.tolist() == list(range(18))
+    expect = {"A.npz", "vectors.npz"} if compact else \
+        {"A.npy", "b.npy", "idofs.npy", "idofs3d.npy"}
+    assert set(os.listdir(tmp_path)) == expect
+
+
+def test_compact_and_reference_layouts_load_identically(tmp_path):
+    """Both layouts yield the identical HostCSR (same planes, same
+    dtypes), and the compact A stores int32 column indices."""
+    from tpuamg.io_utils import load_coupling
+    rng = np.random.default_rng(2)
+    n3, n1 = 40, 8
+    n = n3 + n1
+    d = rng.standard_normal((n, n)) * (rng.random((n, n)) < 0.15)
+    A = HostCSR.from_dense(d + d.T + n * np.eye(n))
+    Pi = HostCSR.from_dense(rng.random((n1, n3)) * (rng.random((n1, n3))
+                                                    < 0.3))
+    Mq = HostCSR.from_dense(np.diag(rng.random(n1) + 1.0))
+    coords = rng.random((n, 3))
+    b = rng.standard_normal(n)
+    out = {}
+    for compact in (False, True):
+        folder = str(tmp_path / str(compact))
+        dump_system(A, b, (n3, n1), folder, coords=coords,
+                    coupling=(Pi, Mq), gamma=1e8, compact=compact)
+        out[compact] = (load_system(folder, with_coords=True),
+                        load_coupling(folder))
+    (sys_r, cpl_r), (sys_c, cpl_c) = out[False], out[True]
+    for X, Y in ((sys_r[0], sys_c[0]), (cpl_r[1], cpl_c[1]),
+                 (cpl_r[2], cpl_c[2])):
+        assert X.shape == Y.shape
+        for f in ("indptr", "indices", "data"):
+            u, v = getattr(X, f), getattr(Y, f)
+            assert u.dtype == v.dtype and np.array_equal(u, v), f
+    for u, v in zip(sys_r[1:], sys_c[1:]):
+        assert np.array_equal(u, v)
+    assert cpl_r[0] == cpl_c[0] == 1e8
+    with np.load(str(tmp_path / "True" / "A.npz")) as z:
+        assert z["indices"].dtype == np.int32
 
 
 def test_solution_roundtrip(tmp_path):
@@ -42,14 +84,18 @@ def test_dat_parser():
     assert sol.maxiter == 1000
 
 
+REFERENCE_DAT = os.path.join(os.path.dirname(__file__), "data",
+                             "reference_input_metric.dat")
+
+
 def test_reference_dat_file_parses():
-    """Our parser must read the reference's own input file."""
-    raw = parse_dat_file("/root/reference/src/input_metric.dat")
+    """Our parser must read a file in the reference's own layout."""
+    raw = parse_dat_file(REFERENCE_DAT)
     assert raw["linear_itsolver_type"] == 1
     assert raw["AMG_type"] == "SA"
-    amg, sol = dat_to_amg_parameters(
-        "/root/reference/src/input_metric.dat")
+    amg, sol = dat_to_amg_parameters(REFERENCE_DAT)
     assert amg.amg_type == "sa" and sol.tolerance == 1e-6
+    assert amg.aggregation_type == "hec" and sol.method == "cg"
 
 
 def test_tabulate_and_writer(tmp_path, capsys):

@@ -89,7 +89,7 @@ def test_sgs_cheb_jacobi_parity():
 
 
 def test_cheb_complement_parity():
-    """Interface Schwarz + masked-Chebyshev complement (the TPU tail's
+    """Interface Schwarz + masked-Chebyshev complement (the host tail's
     gather-light configuration, smoother='chebyshev' + idofs)."""
     from dataclasses import replace
     A, _, idofs = _system(1e6)
@@ -114,7 +114,7 @@ def test_hybrid_uses_native_and_matches_fallback():
     coords = np.concatenate([mesh3d.vertices, curve.vertices])
     prm = replace(DAT, schwarz_cluster=True)
     prec, slots, nsl = setup_structured(
-        A, coords, prm, dtype=jnp.float64, idofs=idofs, pallas=False,
+        A, coords, prm, dtype=jnp.float64, idofs=idofs, 
         algebraic_below=10 ** 9, host_tail=True)
     assert prec.native is not None
     rng = np.random.default_rng(3)

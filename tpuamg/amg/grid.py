@@ -1,10 +1,10 @@
 """Grid-structured hierarchy: reshape-based geometric transfers with
-Galerkin (algebraic) coarse operators — the fastest TPU path for the
-reference's structured-mesh problems.
+Galerkin (algebraic) coarse operators for the reference's structured-mesh
+problems.
 
 All five reference problems discretize structured grids
-(UnitSquare/UnitCubeMesh, utils.py:149-182).  On TPU that structure is
-worth everything: with dofs kept in lexicographic grid order the operator
+(UnitSquare/UnitCubeMesh, utils.py:149-182).  With dofs kept in
+lexicographic grid order the operator
 has ~stencil-many DIA offsets at EVERY level, and 2x2(x2) window
 aggregation is a pure reshape:
 
@@ -33,7 +33,7 @@ from ..sparse import HostCSR
 from ..sparse.dia import DIA
 from ..config import AMGParameters
 from .hierarchy import MGPreconditioner
-from .structured import BlockChebyshevSmoother, DiaChebyshevSmoother
+from .structured import BlockChebyshevSmoother
 
 
 @jax.tree_util.register_pytree_node_class
@@ -185,45 +185,16 @@ def _lmax_blockinv(A: HostCSR, apply_binv, mask, iters=15, seed=0):
     return float(lam)
 
 
-def resolve_pallas(pallas, dtype=None):
-    """Resolve a pallas= flag to (use_pallas, interpret).
-
-    None = auto: fused Pallas kernels on TPU, XLA slice loop elsewhere —
-    and only for f32/bf16 data (the TPU has no native f64; the Mosaic
-    kernels are single-precision).  True/False force; "interpret" runs
-    the kernels in interpret mode (CPU tests of the exact TPU code
-    path)."""
-    from ..sparse.dia_pallas import pallas_available, default_backend_is_tpu
-    if pallas == "interpret":
-        return True, True
-    if pallas is None:
-        ok = pallas_available() and default_backend_is_tpu()
-        if ok and dtype is not None and jnp.dtype(dtype).itemsize > 4:
-            ok = False
-        return ok, False
-    return bool(pallas), False
-
-
 def setup_grid(A_host: HostCSR, dims, F=1, mask=None,
                params: AMGParameters = AMGParameters(),
                dtype=jnp.float32, cheb_degree=3, cheb_ratio=8.0,
-               cheb_kind=1, storage_dtype=None, pallas=None):
+               cheb_kind=1):
     """Build the grid hierarchy for a field-stacked structured-grid system.
 
     A_host: monolithic operator in *field-major* order ([u1-block; u2-...]);
     dims: grid dims (points per axis, last axis fastest in vertex order);
     F: number of fields. Returns (prec, slots, n) with slots the
-    field-interleave permutation (apply outside the loop).
-
-    storage_dtype: optional narrower dtype (e.g. jnp.bfloat16) for the
-    DIA planes and block inverses — halves the preconditioner's HBM
-    traffic; arithmetic still runs in `dtype` (XLA promotes).
-
-    pallas: None (auto) / True / False / "interpret" — use the fused
-    multi-diagonal Pallas kernels (sparse.dia_pallas) for every operator
-    and block-inverse apply; cuts the per-op dispatch count of a V-cycle
-    by ~an order of magnitude (docs/PERF_NOTES.md)."""
-    use_pallas, interpret = resolve_pallas(pallas, dtype)
+    field-interleave permutation (apply outside the loop)."""
     nv = int(np.prod(dims))
     assert A_host.shape[0] == nv * F
     slots = interleave_fields(nv, F)
@@ -236,7 +207,6 @@ def setup_grid(A_host: HostCSR, dims, F=1, mask=None,
 
     levels = []
     dims_cur = tuple(dims)
-    sdtype = storage_dtype or dtype
     while (len(levels) < params.max_levels - 1
            and mask_np.sum() > params.coarse_dof):
         if F > 1:
@@ -254,43 +224,20 @@ def setup_grid(A_host: HostCSR, dims, F=1, mask=None,
             def apply_binv(r, iv=1.0 / dg):
                 return iv * r
             lmax = _lmax_blockinv(A, apply_binv, mask_np)
-        if use_pallas:
-            from ..sparse.dia_pallas import (
-                maybe_pdia, blockinv_dia, FusedChebSmoother,
-                fused_cheb_vmem_bytes, FUSED_VMEM_BUDGET)
-            coffs, cdata = blockinv_dia(blockinv, mask_np)
-            A_dia = DIA.from_host(A, dtype=sdtype)
-            C_dia = DIA(coffs, jnp.asarray(cdata, dtype=sdtype),
-                        (A.shape[0], A.shape[0]))
-            item = jnp.dtype(sdtype).itemsize
-            if fused_cheb_vmem_bytes(
-                    A.shape[0], len(A_dia.offsets), len(coffs),
-                    tuple(A_dia.offsets) + tuple(coffs), item, item
-                    ) < FUSED_VMEM_BUDGET:
-                # whole degree-k smoother sweep = ONE kernel launch
-                smoother = FusedChebSmoother.build(
-                    A_dia, C_dia, 1.1 * lmax, 1.1 * lmax / cheb_ratio,
-                    cheb_degree, kind=cheb_kind, interpret=interpret)
-            else:   # too big for VMEM-resident vectors: launch-per-op
-                C = maybe_pdia(C_dia, interpret=interpret)
-                smoother = DiaChebyshevSmoother(
-                    C, 1.1 * lmax, 1.1 * lmax / cheb_ratio, cheb_degree,
-                    kind=cheb_kind)
-            Adev = maybe_pdia(A_dia, interpret=interpret)
-        elif F > 1:
+        if F > 1:
             smoother = BlockChebyshevSmoother(
-                jnp.asarray(blockinv, dtype=sdtype),
+                jnp.asarray(blockinv, dtype=dtype),
                 jnp.asarray(mask_np, dtype=dtype),
                 1.1 * lmax, 1.1 * lmax / cheb_ratio, cheb_degree,
                 kind=cheb_kind)
-            Adev = DIA.from_host(A, dtype=sdtype)
+            Adev = DIA.from_host(A, dtype=dtype)
         else:
             smoother = ChebyshevDiagSmoother(
                 jnp.asarray(blockinv.reshape(-1), dtype=dtype),
                 jnp.asarray(mask_np, dtype=dtype),
                 1.1 * lmax, 1.1 * lmax / cheb_ratio, cheb_degree,
                 kind=cheb_kind)
-            Adev = DIA.from_host(A, dtype=sdtype)
+            Adev = DIA.from_host(A, dtype=dtype)
         levels.append(GridLevel(
             Adev, smoother,
             jnp.asarray(mask_np, dtype=dtype), dims_cur, F))
@@ -304,20 +251,15 @@ def setup_grid(A_host: HostCSR, dims, F=1, mask=None,
         presmooth=params.presmooth_iter, postsmooth=params.postsmooth_iter,
         amli_degree=params.amli_degree, max_w_work=params.max_w_work,
         # AMG_coarse_scaling is pinned OFF on the whole grid path: the
-        # fused whole-cycle kernel (grid_fused) implements the unscaled
-        # cycle, and this fallback must stay interchangeable with it.
-        # The window coarse spaces carry their own geometric scaling;
-        # scaling is honored on the algebraic + structured paths.
+        # grid-path iteration counts recorded in the tables were taken
+        # with the unscaled cycle, and the window coarse spaces carry
+        # their own geometric scaling; scaling is honored on the
+        # algebraic + structured paths.
         coarse_scaling=False)
     return prec, slots, nv * F
 
 
-def grid_system(A_host: HostCSR, slots, dtype=jnp.float32, pallas=None):
-    """Outer operator in interleaved order (DIA, or PDIA on TPU)."""
+def grid_system(A_host: HostCSR, slots, dtype=jnp.float32):
+    """Outer operator in interleaved order (DIA)."""
     n = A_host.shape[0]
-    D = DIA.from_host(_permute(A_host, slots, n), dtype=dtype)
-    use_pallas, interpret = resolve_pallas(pallas, dtype)
-    if use_pallas:
-        from ..sparse.dia_pallas import maybe_pdia
-        return maybe_pdia(D, interpret=interpret)
-    return D
+    return DIA.from_host(_permute(A_host, slots, n), dtype=dtype)

@@ -1,14 +1,12 @@
 """Sharding layer: row-partitioned sparse solver over a device mesh.
 
 The reference is a serial C solver (SURVEY.md §2b "MPI": none in the main
-path); distribution is a NEW first-class layer in the TPU build
+path); distribution is a new first-class layer here
 (BASELINE.md north star).  Design follows the XLA/GSPMD recipe: pick a
 1-D mesh axis "p", annotate row-sharded layouts on every per-row array
 (ELL planes, smoother slices, aggregate maps, vectors), keep coarse-grid
 data replicated, and let XLA insert the collectives (all-gathers for SpMV
-column footprints, psums for Krylov dot products).  Manual halo-exchange
-kernels (ppermute/RDMA) are the optimization pass on top — the semantics
-layer is shardings.
+column footprints, psums for Krylov dot products).
 
 Scaling model: the fine-grid rows (the memory+bandwidth hog) are split
 across devices; coarse levels below `replicate_below` rows stay replicated
@@ -32,21 +30,15 @@ from ..smoothers import (JacobiSmoother, L1JacobiSmoother,
                          MetricSmoother)
 
 
-def init_multihost(coordinator_address=None, num_processes=None,
-                   process_id=None):
-    """Multi-host bring-up: `jax.distributed.initialize` with env-based
-    defaults (JAX_COORDINATOR_ADDRESS etc. / TPU pod auto-detection),
-    then return the global device mesh.  After this, every host runs the
-    SAME program over jax.devices() spanning all hosts — the mesh axes
-    ride ICI within a slice and DCN across slices; no further code
-    changes (the sharded solvers below are host-count agnostic).
-    Idempotent: safe to call when already initialized or single-host."""
-    try:
-        jax.distributed.initialize(
-            coordinator_address=coordinator_address,
-            num_processes=num_processes, process_id=process_id)
-    except (RuntimeError, ValueError):
-        pass   # already initialized / single-process
+def init_multihost(coordinator_address, num_processes, process_id):
+    """Multi-process bring-up: `jax.distributed.initialize` with an
+    explicit coordinator (`"localhost:<port>"` on one host), then return
+    the global device mesh.  After this, every process runs the SAME
+    program over jax.devices() spanning all processes; the sharded
+    solvers below are process-count agnostic."""
+    jax.distributed.initialize(
+        coordinator_address=coordinator_address,
+        num_processes=num_processes, process_id=process_id)
     return device_mesh()
 
 
@@ -285,7 +277,7 @@ def shard_preconditioner_agglomerated(prec: MGPreconditioner, mesh,
                                       replicate_below=4096):
     """Three-tier residency over a 2-D ("po","pi") mesh (see module note).
 
-    Grid/Structured (DIA) hierarchies only — the flagship TPU paths."""
+    Grid/Structured (DIA) hierarchies only."""
     assert tuple(mesh.axis_names) == ("po", "pi"), mesh.axis_names
     levels = []
     for L in prec.levels:

@@ -100,10 +100,9 @@ def distributed_pcg_step(A_host: HostCSR, b, params: AMGParameters = None,
 
 
 # ---------------------------------------------------------------------------
-# Distributed grid path (DIA + reshape transfers, the TPU flagship) — pads
-# the slowest grid axis to ndev * 2**shard_depth ghost vertices so levels
-# 0..shard_depth divide the mesh exactly and _put_best shards them for
-# real (round-1 backlog: "grid-dim padding to device-mesh divisibility").
+# Distributed grid path (DIA + reshape transfers) — pads the slowest grid
+# axis to ndev * 2**shard_depth ghost vertices so levels 0..shard_depth
+# divide the mesh exactly and _put_best shards them for real.
 # Because dof order is axis-0-major, a row shard is a contiguous slab of
 # grid rows: the 2x window restriction/prolongation reshapes stay entirely
 # shard-local (device boundaries fall on even axis-0 offsets).
@@ -128,9 +127,8 @@ def _vertex_embedding(dims, dims2):
 def pad_grid_problem(A_host: HostCSR, b, dims, F, mult):
     """Append ghost vertices up to per-axis multiples.
 
-    mult: int (axis 0 only — mesh divisibility) or a per-axis tuple (the
-    sharded-Pallas layout additionally needs the flat length divisible by
-    128*8*ndev; dist/pallas_dist.plan_sharded).  A_host/b are field-major
+    mult: int (axis 0 only — mesh divisibility) or a per-axis tuple.
+    A_host/b are field-major
     ([u1-block; u2-block]).  Ghost rows are identity with mask 0
     (excluded from smoothing and coarse sums).
     Returns (A2, b2, dims2, mask2)."""
@@ -176,181 +174,44 @@ def unpad_grid_vector(x2, dims, dims2, F):
     return x
 
 
-def _dist_pallas_mults(dims, F, ndev, shard_depth, pallas_levels=None):
-    """Per-axis padding multiples so the sharded-Pallas layout contract
-    holds at levels 0..pallas_levels-1: axis 0 divisible by
-    ndev*2^shard_depth (shard + reshape locality) and each level's flat
-    length divisible by 128*8*ndev (plan_sharded's 2-D kernel layout;
-    level l dims halve l times).  Greedy: doubles the multiple of
-    whichever axis grows the padded volume least.
-
-    pallas_levels=None selects depth automatically: the padded volume
-    budget is set by the 2-level solution (fine-level flops scale with
-    the padded volume, so deeper Pallas coverage must not inflate the
-    fine grid), and the deepest nlv <= shard_depth + 1 whose solution
-    fits that budget wins — extra depth is taken only when free."""
-    from ..sparse.dia_pallas import LANES
-    need = LANES * 8 * ndev
-    mults = [ndev * 2 ** shard_depth] + [1] * (len(dims) - 1)
-
-    def ok(ms, nlv):
-        d2 = [-(-d // m) * m for d, m in zip(dims, ms)]
-        for _ in range(nlv):
-            if (int(np.prod(d2)) * F) % need:
-                return False
-            d2 = [(d + 1) // 2 for d in d2]
-        return True
-
-    def nflat(ms):
-        return int(np.prod([-(-d // m) * m
-                            for d, m in zip(dims, ms)])) * F
-
-    def solve_depth(nlv, cap):
-        trial = list(mults)
-        for _ in range(64):
-            if ok(trial, nlv):
-                return trial
-            if nflat(trial) > cap:
-                return None    # padding blow-up at this depth
-            best, bi = None, 0
-            for i in range(len(dims)):
-                t = list(trial)
-                t[i] *= 2
-                cost = nflat(t) / nflat(trial)
-                if best is None or cost < best:
-                    best, bi = cost, i
-            trial[bi] *= 2
-        return None
-
-    if pallas_levels is not None:
-        for nlv in range(pallas_levels, 0, -1):
-            got = solve_depth(nlv, 4 * nflat(mults))
-            if got is not None:
-                return tuple(got)
-        raise ValueError("cannot satisfy sharded-Pallas divisibility")
-    base = None
-    for nlv in range(min(2, shard_depth + 1), 0, -1):
-        base = solve_depth(nlv, 4 * nflat(mults))
-        if base is not None:
-            break
-    if base is None:
-        raise ValueError("cannot satisfy sharded-Pallas divisibility")
-    budget = nflat(base)
-    chosen = base
-    for nlv in range(shard_depth + 1, 2, -1):   # deepest free depth wins
-        got = solve_depth(nlv, budget)
-        if got is not None and nflat(got) <= budget:
-            chosen = got
-            break
-    return tuple(chosen)
-
-
-def _upgrade_pallas_levels(prec, mesh, n_shard_min, interpret):
-    """Swap sharded levels' XLA Chebyshev smoothers for shard_map-wrapped
-    fused Pallas smoothers (dist/pallas_dist.ShardedChebSmoother) where
-    the layout contract holds; per-level graceful fallback otherwise."""
-    from ..amg.grid import GridLevel, ChebyshevDiagSmoother
-    from ..amg.structured import BlockChebyshevSmoother
-    from ..sparse.dia import DIA
-    from ..amg.hierarchy import MGPreconditioner
-    from .pallas_dist import ShardedChebSmoother
-    levels = []
-    n_upgraded = 0
-    for L in prec.levels:
-        sm = L.smoother
-        nl = L.A.shape[0]
-        if (isinstance(L, GridLevel) and nl >= n_shard_min
-                and isinstance(sm, (BlockChebyshevSmoother,
-                                    ChebyshevDiagSmoother))):
-            try:
-                if isinstance(sm, BlockChebyshevSmoother):
-                    bi = np.asarray(sm.blockinv, dtype=np.float64)
-                else:
-                    bi = np.asarray(sm.invd,
-                                    dtype=np.float64).reshape(-1, 1, 1)
-                A_dia = DIA(L.A.offsets, jnp.asarray(np.asarray(L.A.data)),
-                            L.A.shape, L.A.nnz)
-                sm2 = ShardedChebSmoother.build(
-                    A_dia, bi, np.asarray(sm.mask, dtype=np.float64),
-                    sm.lmax, sm.lmin, sm.degree, mesh,
-                    interpret=interpret)
-                levels.append(GridLevel(L.A, sm2, L.mask, L.dims, L.F))
-                n_upgraded += 1
-                continue
-            except ValueError:
-                pass
-        levels.append(L)
-    prec2 = MGPreconditioner(
-        tuple(levels), prec.coarse_inv, cycle=prec.cycle,
-        maxit=prec.maxit, presmooth=prec.presmooth,
-        postsmooth=prec.postsmooth, amli_degree=prec.amli_degree,
-        max_w_work=prec.max_w_work, coarse_scaling=prec.coarse_scaling)
-    return prec2, n_upgraded
-
-
 def distributed_grid_solve(A_host: HostCSR, b, dims, F=1,
                            params: AMGParameters = None, mesh=None,
                            tol=1e-8, maxiter=500, dtype=jnp.float32,
-                           shard_depth=3, cheb_degree=3, pallas=None):
+                           shard_depth=3, cheb_degree=3):
     """Row-sharded grid-hierarchy PCG over the device mesh.
 
     Levels 0..shard_depth are sharded (operators, masks, block inverses,
     iterates all P("p") on rows); deeper levels replicate.  Collectives
     (halo all-gathers for the DIA shifts, psums for dots) are inserted by
-    GSPMD from the shardings.
-
-    pallas: None (auto: on for TPU) / True / False / "interpret" — use
-    shard_map-wrapped fused Pallas kernels with explicit ppermute halo
-    exchange for the outer SpMV and the sharded levels' smoother sweeps
-    (dist/pallas_dist; the distribution is exact, so iteration counts
-    match the XLA path).  Levels whose sizes miss the kernel layout
-    contract keep the XLA ops."""
-    from ..amg.grid import setup_grid, grid_system, resolve_pallas
+    GSPMD from the shardings.  The distribution is exact, so iteration
+    counts do not depend on the device count."""
+    from ..amg.grid import setup_grid, grid_system
     from ..sparse.dia import dia_matvec_op
-    from .sharding import shard_preconditioner, _put
+    from .sharding import shard_preconditioner, shard_dia, _put
     from jax.sharding import PartitionSpec as P
     if mesh is None:
         mesh = device_mesh()
     ndev = mesh.devices.size
-    use_pallas, interpret = resolve_pallas(pallas)
     if params is None:
         params = AMGParameters(cycle_type="v",
                                dtype=np.dtype(dtype).name)
-    mults = ndev * 2 ** shard_depth
-    if use_pallas:
-        # only LEVEL 0 (the outer operator + finest smoother) needs the
-        # layout contract met by grid padding; deeper sharded levels pad
-        # themselves with inert identity rows inside
-        # ShardedChebSmoother.build, so the fine grid no longer inflates
-        # for their sake (round-1 cost: ~1.26x rows at n=512)
-        try:
-            mults = _dist_pallas_mults(dims, F, ndev, shard_depth,
-                                       pallas_levels=1)
-        except ValueError:
-            use_pallas = False
-    A2, b2, dims2, mask2 = pad_grid_problem(A_host, b, dims, F, mults)
+    A2, b2, dims2, mask2 = pad_grid_problem(A_host, b, dims, F,
+                                            ndev * 2 ** shard_depth)
     # replicate levels deeper than shard_depth
     n_sd = int(np.prod([-(-d // 2 ** shard_depth) for d in dims2])) * F
-    prec, slots, nsl = setup_grid(A2, dims2, F=F, mask=mask2,
-                                  params=params, dtype=dtype,
-                                  cheb_degree=cheb_degree, pallas=False)
+    # Build the unsharded hierarchy in host memory: built on the default
+    # device, it would sit whole on device 0 until resharded and raise
+    # that device's peak above the others'.
+    with jax.default_device(jax.devices("cpu")[0]):
+        prec, slots, nsl = setup_grid(A2, dims2, F=F, mask=mask2,
+                                      params=params, dtype=dtype,
+                                      cheb_degree=cheb_degree)
+        Adia = grid_system(A2, slots, dtype=dtype)
+        bj = jnp.zeros(nsl, dtype=dtype).at[jnp.asarray(slots)].set(
+            jnp.asarray(b2, dtype=dtype))
     prec = shard_preconditioner(prec, mesh, replicate_below=n_sd)
-    Adia = grid_system(A2, slots, dtype=dtype, pallas=False)
-    n_up = 0
     n_shardable = sum(1 for L in prec.levels if L.A.shape[0] >= n_sd)
-    if use_pallas:
-        prec, n_up = _upgrade_pallas_levels(prec, mesh, n_sd, interpret)
-        from .pallas_dist import ShardedPDIA
-        try:
-            Adia = ShardedPDIA.from_dia(Adia, mesh, interpret=interpret)
-        except ValueError:
-            from .sharding import shard_dia
-            Adia = shard_dia(Adia, mesh)
-    else:
-        from .sharding import shard_dia
-        Adia = shard_dia(Adia, mesh)
-    bj = jnp.zeros(nsl, dtype=dtype).at[jnp.asarray(slots)].set(
-        jnp.asarray(b2, dtype=dtype))
+    Adia = shard_dia(Adia, mesh)
     bj = _put(bj, mesh, P("p"))
     res = pcg(dia_matvec_op(Adia), bj, M=as_operator(prec), tol=tol,
               maxiter=maxiter)
@@ -358,7 +219,5 @@ def distributed_grid_solve(A_host: HostCSR, b, dims, F=1,
     res.x = unpad_grid_vector(x2, dims, dims2, F)
     res.dist_info = {"ndev": ndev, "nflat": nsl,
                      "levels": len(prec.levels),
-                     "sharded_levels": n_shardable,
-                     "pallas_levels": n_up,
-                     "outer_pallas": type(Adia).__name__ == "ShardedPDIA"}
+                     "sharded_levels": n_shardable}
     return res, mesh

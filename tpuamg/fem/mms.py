@@ -1,7 +1,7 @@
 """Method of Manufactured Solutions, derived with JAX autodiff.
 
 The reference derives forcing terms and fluxes symbolically with sympy+ulfy
-(/root/reference/src/bidomain_2d.py:7-48).  The TPU-idiomatic equivalent:
+(reference src/bidomain_2d.py:7-48).  The JAX equivalent:
 write the exact solution as a JAX scalar function and obtain fluxes and
 forcings by ``jax.grad``/``jax.jacfwd`` — no symbolic layer, exact to
 machine precision, and jit-compiled for fast vectorized evaluation during
@@ -27,8 +27,8 @@ def vectorize(f_scalar):
     """(gdim,) -> scalar  ==>  (n, gdim) -> (n,) numpy evaluator.
 
     Pinned to the CPU backend: MMS evaluation feeds *host-side* assembly
-    and error quadrature; shipping millions of quadrature points through a
-    remote TPU would dominate setup time."""
+    and error quadrature; shipping millions of quadrature points to an
+    accelerator and back would dominate setup time."""
     fv = jax.jit(jax.vmap(f_scalar))
 
     def call(pts):

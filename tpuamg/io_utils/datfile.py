@@ -3,7 +3,7 @@
 The reference's offline 3D-1D solver is configured by
 ``/root/reference/src/input_metric.dat`` — a ``key = value %comment``
 format parsed in C.  This parser maps the used keys onto our
-AMGParameters/SolverConfig so the same input files drive the TPU build
+AMGParameters/SolverConfig so the same input files drive this build
 (run_solver_3d1d.py parity).
 """
 from __future__ import annotations

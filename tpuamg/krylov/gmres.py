@@ -43,18 +43,16 @@ def _arnoldi_cycle(A, M, b, x0, restart):
     V = V.at[0].set(r / jnp.where(beta > 0, beta, 1.0))
 
     def arnoldi_step(j, carry):
-        # TPU-idiomatic orthogonalization: masked classical Gram-Schmidt
-        # with reorthogonalization (CGS2) — two (m+1, n) @ (n,) matmuls on
-        # the MXU instead of a sequential per-vector MGS loop (in-loop
-        # dynamic indexing is pathological on TPU; docs/PERF_NOTES.md).
-        # CGS2 is as stable as MGS in practice.
+        # Masked classical Gram-Schmidt with reorthogonalization (CGS2):
+        # two (m+1, n) @ (n,) products instead of a sequential
+        # per-vector MGS loop; CGS2 is as stable as MGS in practice.
         V, H = carry
         w = M(A(V[j]))
         mask = (jnp.arange(m + 1) <= j).astype(dtype)
-        h1 = (V @ w) * mask
-        w = w - V.T @ h1
-        h2 = (V @ w) * mask
-        w = w - V.T @ h2
+        h1 = jnp.matmul(V, w, precision=jax.lax.Precision.HIGHEST) * mask
+        w = w - jnp.matmul(V.T, h1, precision=jax.lax.Precision.HIGHEST)
+        h2 = jnp.matmul(V, w, precision=jax.lax.Precision.HIGHEST) * mask
+        w = w - jnp.matmul(V.T, h2, precision=jax.lax.Precision.HIGHEST)
         hnorm = jnp.linalg.norm(w)
         H = H.at[:, j].set(h1 + h2)
         H = H.at[j + 1, j].set(hnorm)
@@ -68,7 +66,8 @@ def _arnoldi_cycle(A, M, b, x0, restart):
 @jax.jit
 def _apply_update(V, x0, y_pad):
     """x = x0 + V[:m].T @ y (y zero-padded to m keeps shapes static)."""
-    return x0 + V[:-1].T @ y_pad
+    return x0 + jnp.matmul(V[:-1].T, y_pad,
+                           precision=jax.lax.Precision.HIGHEST)
 
 
 def _hessenberg_residuals(H, beta):

@@ -44,9 +44,9 @@ class MinresResult:
 
 @partial(jax.jit, static_argnames=("chunk",))
 def _minres_chunk(A, M, state, chunk):
-    """`chunk` MINRES iterations as one fixed-trip scan (same
-    remote-runtime design as krylov.cg._pcg_scan_chunk: no data-dependent
-    loop conditions, no masking, per-step scalars via scan outputs)."""
+    """`chunk` MINRES iterations as one fixed-trip scan (same design as
+    krylov.cg._pcg_scan_chunk: no data-dependent loop conditions, no
+    masking, per-step scalars via scan outputs)."""
     def body_fn(s, _):
         (x, r1, r2, y, beta, betaold, dbar, epsln, phibar_, cs, sn,
          w, w2) = s

@@ -1,29 +1,43 @@
 """ctypes loader for the native amgkit library (C++ host setup kernels).
 
-Builds `amgkit.cpp` with g++ -O3 on first import (cached as libamgkit.so
-next to the source); every entry point has a vectorized-numpy fallback in
-the pure-Python modules, so absence of a toolchain only costs setup speed.
+Builds `amgkit.cpp` + `tailkit.cpp` with g++ -O3 on first use into
+`build/` next to the sources (listed in .gitignore; `-march=native` is
+safe because the library is built on the machine that runs it).  Every
+entry point has a vectorized-numpy fallback in the pure-Python modules,
+so absence of a toolchain only costs setup speed.
 """
 from __future__ import annotations
 
 import ctypes
 import os
 import subprocess
+import tempfile
 
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [os.path.join(_HERE, "amgkit.cpp"),
          os.path.join(_HERE, "tailkit.cpp")]
-_LIB = os.path.join(_HERE, "libamgkit.so")
+_BUILD_DIR = os.path.join(_HERE, "build")
+_LIB = os.path.join(_BUILD_DIR, "libamgkit.so")
 
 _lib = None
 
 
 def _build():
-    cmd = ["g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
-           "-o", _LIB] + _SRCS
-    subprocess.run(cmd, check=True, capture_output=True)
+    """Compile to a temporary name, then rename: concurrent first users
+    (test workers) never load a half-written library."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = ["g++", "-O3", "-march=native", "-fopenmp", "-shared",
+               "-fPIC", "-o", tmp] + _SRCS
+        subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, _LIB)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def get_lib():
@@ -37,7 +51,7 @@ def get_lib():
                                                 for s in _SRCS)):
             _build()
         lib = ctypes.CDLL(_LIB)
-    except Exception:
+    except (OSError, subprocess.CalledProcessError):
         return None
 
     i64p = np.ctypeslib.ndpointer(np.int64, flags="C")

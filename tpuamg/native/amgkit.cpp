@@ -1,7 +1,7 @@
 // amgkit: native host-side kernels for AMG setup graph work.
 //
 // The reference keeps its entire setup phase in C (HAZmath; SURVEY.md §2b).
-// In the TPU build the *solve* phase is XLA device code, and this library
+// Here the *solve* phase is XLA device code, and this library
 // provides the C++ analog of HAZmath's setup internals where vectorized
 // numpy is weakest — the inherently sequential-ish graph algorithms:
 //   - csr_spgemm      Gustavson sparse matrix-matrix product

@@ -73,7 +73,7 @@ def main(argv=None):
     parser.add_argument("-smoother", type=str, default="cheb",
                         choices=("cheb", "patch"),
                         help="mg smoother: nodal-block Chebyshev (the "
-                        "TPU default) or 'patch' = vertex-star patch "
+                        "default) or 'patch' = vertex-star patch "
                         "relaxation (the firedrake.PatchPC analog, "
                         "bidomain_2d_firedrake.py:113-120: overlapping "
                         "1-level vertex-neighborhood Schwarz blocks, "

@@ -45,7 +45,7 @@ def standard_parser(default_precond, precond_choices):
     p.add_argument("-backend", type=str, default="algebraic",
                    choices=("algebraic", "grid"),
                    help="algebraic = general ELL hierarchy; grid = "
-                        "gather-free structured-grid hierarchy (TPU path)")
+                        "gather-free structured-grid hierarchy")
     return p
 
 

@@ -1,18 +1,18 @@
-"""Overlapping Schwarz block smoother, batched for the MXU.
+"""Overlapping Schwarz block smoother, batched into dense products.
 
-TPU-native rebuild of HAZmath's Schwarz method (SURVEY.md §2b "HAZmath
+Device rebuild of HAZmath's Schwarz method (SURVEY.md §2b "HAZmath
 Schwarz smoother"; parameters ``Schwarz_levels/mmsize/maxlvl/type/blksolver``
 at /root/reference/src/amg_parameters.py:39-43 and
 ``input_metric.dat`` precond type 16 = symmetric multiplicative Schwarz on
 interface dofs + GS elsewhere, /root/reference/src/utils.py:84).
 
-Design mapping (reference -> TPU):
+Design mapping (reference -> device):
 - blocks grown `maxlvl` graph-levels from seed dofs, capped at `mmsize`
   rows  ->  same BFS growth on the host at setup, with seeds optionally
   thinned to a covering independent set so the block count stays bounded;
 - per-block UMFPACK LU solves  ->  blocks padded to a uniform size, dense
   inverses precomputed on host, application is ONE batched (nblk, m, m) @
-  (nblk, m) matmul — exactly the MXU's shape;
+  (nblk, m) product;
 - symmetric multiplicative ordering  ->  blocks colored by overlap
   (host greedy coloring of the block-intersection graph); within a color
   blocks are disjoint, so a multiplicative sweep is a short static sequence
@@ -145,7 +145,8 @@ class SchwarzSmoother:
         r = b - A.matvec(x)
         rpad = jnp.concatenate([r, jnp.zeros((1,), dtype=r.dtype)])
         rb = rpad[ids]                                   # (nb, m)
-        delta = jnp.einsum("bij,bj->bi", inv, rb)        # batched MXU solve
+        delta = jnp.einsum("bij,bj->bi", inv, rb,
+                           precision=jax.lax.Precision.HIGHEST)
         xpad = jnp.concatenate([x, jnp.zeros((1,), dtype=x.dtype)])
         xpad = xpad.at[ids.reshape(-1)].add(
             self.weight * delta.reshape(-1))
@@ -160,7 +161,8 @@ class SchwarzSmoother:
                 xpad = jnp.concatenate([x, jnp.zeros((1,), dtype=x.dtype)])
                 for c in range(ncol):
                     rb = rpad[self.dof_ids[c]]
-                    delta = jnp.einsum("bij,bj->bi", self.inv_blocks[c], rb)
+                    delta = jnp.einsum("bij,bj->bi", self.inv_blocks[c],
+                                       rb, precision=jax.lax.Precision.HIGHEST)
                     xpad = xpad.at[self.dof_ids[c].reshape(-1)].add(
                         self.weight * delta.reshape(-1))
                 x = xpad[:-1]
@@ -253,7 +255,7 @@ class LocalSchwarzSmoother:
     the ghost column n), so one color update is
 
         r_loc  = b[ids] - sum_k row_vals * x[row_cols]      (local rows)
-        x[ids] += inv_blocks @ r_loc                        (MXU batch)
+        x[ids] += inv_blocks @ r_loc                        (batched)
 
     ~6 ops per color regardless of the operator's matvec cost.  Blocks
     within a color are disjoint (overlap coloring), so the scatter is
@@ -281,9 +283,11 @@ class LocalSchwarzSmoother:
         xpad = jnp.concatenate([x, jnp.zeros((1,), dtype=x.dtype)])
         bpad = jnp.concatenate([b, jnp.zeros((1,), dtype=b.dtype)])
         ax = jnp.einsum("bmk,bmk->bm", self.row_vals[c],
-                        xpad[self.row_cols[c]])
+                        xpad[self.row_cols[c]],
+                        precision=jax.lax.Precision.HIGHEST)
         r = bpad[self.dof_ids[c]] - ax
-        delta = jnp.einsum("bij,bj->bi", self.inv_blocks[c], r)
+        delta = jnp.einsum("bij,bj->bi", self.inv_blocks[c], r,
+                           precision=jax.lax.Precision.HIGHEST)
         xpad = xpad.at[self.dof_ids[c].reshape(-1)].add(
             delta.reshape(-1).astype(x.dtype))
         return xpad[:-1]
@@ -410,7 +414,8 @@ class Rank1SchurSmoother:
         xpad = jnp.concatenate([x, jnp.zeros((1,), dtype=x.dtype)])
         bpad = jnp.concatenate([b, jnp.zeros((1,), dtype=b.dtype)])
         ax = jnp.einsum("bmk,bmk->bm", self.row_vals[c],
-                        xpad[self.row_cols[c]])
+                        xpad[self.row_cols[c]],
+                        precision=jax.lax.Precision.HIGHEST)
         r = bpad[self.dof_ids[c]] - ax
         dinv, w, a = self.dinv[c], self.w[c], self.aseed[c]
         t = jnp.sum(w * dinv * w, axis=1)
@@ -487,7 +492,8 @@ class DiagRank1Smoother:
         xpad = jnp.concatenate([x, jnp.zeros((1,), dtype=x.dtype)])
         bpad = jnp.concatenate([b, jnp.zeros((1,), dtype=b.dtype)])
         ax = jnp.einsum("bmk,bmk->bm", self.row_vals[cc],
-                        xpad[self.row_cols[cc]])
+                        xpad[self.row_cols[cc]],
+                        precision=jax.lax.Precision.HIGHEST)
         r = bpad[self.dof_ids[cc]] - ax
         dinv, u, c = self.dinv[cc], self.u[cc], self.c[cc]
         # (D + c u u^T)^{-1} r = D^{-1} r - D^{-1}u c (u^T D^{-1} r)

@@ -8,9 +8,9 @@ Replaces per-seed Python BFS with sparse pattern algebra:
   at the seeds (capped at mmsize), extracted vectorized;
 - coloring: greedy on the seed-overlap graph = A^(2*maxlvl) pattern
   restricted to seeds;
-- block matrices: batched dense extraction on device via an ELL-membership
-  einsum, batched inversion with jnp.linalg.inv — MXU-shaped setup, the
-  TPU equivalent of HAZmath's per-block UMFPACK factorizations
+- block matrices: batched dense extraction via an ELL-membership einsum,
+  batched dense inversion — the equivalent of HAZmath's per-block UMFPACK
+  factorizations
   (Schwarz_blksolver=32, /root/reference/src/amg_parameters.py:43).
 """
 from __future__ import annotations

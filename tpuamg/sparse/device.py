@@ -1,11 +1,10 @@
-"""Device-resident sparse format (ELL / sliced-ELL) and SpMV for TPU.
+"""Device-resident sparse format (ELL / sliced-ELL) and SpMV.
 
-TPU-first design: data-dependent CSR row pointers defeat XLA's static-shape
-model, so device matrices are stored as **padded ELL**: dense ``(n, L)``
-column-index and value planes (L = max row nnz, padded entries point at a
-zero "ghost" slot).  SpMV is then a gather + multiply + row-reduction, which
-XLA lowers to efficient fused TPU code; a Pallas kernel (pallas_kernels.py)
-covers the bandwidth-bound large-n case.
+Data-dependent CSR row pointers defeat XLA's static-shape model, so device
+matrices are stored as **padded ELL**: dense ``(n, L)`` column-index and
+value planes (L = max row nnz, padded entries point at a zero "ghost"
+slot).  SpMV is then a gather + multiply + row-reduction, which XLA fuses
+into one kernel.
 
 This replaces the device role of HAZmath's ``dCSRmat`` SpMV inside the PCG
 hot loop (/root/reference/src/bidomain_2d.py:205-206, SURVEY.md §3.1).
@@ -91,7 +90,7 @@ class ELL:
         return self.matvec(x)
 
     def residual(self, x, b):
-        """b - A @ x (duck-type parity with DIA/PDIA)."""
+        """b - A @ x (duck-type parity with DIA)."""
         return b - self.matvec(x)
 
     def matvec_rows(self, x, row_ids):

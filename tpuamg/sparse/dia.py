@@ -1,17 +1,16 @@
-"""DIA (diagonal) sparse format — the gather-free TPU hot-path format.
+"""DIA (diagonal) sparse format — the gather-free grid/structured format.
 
-Empirical driver (see docs/PERF_NOTES.md): on this TPU toolchain,
-gathers with multi-dimensional index arrays inside `lax.while_loop` bodies
-compile catastrophically (minutes) and run ~100x below bandwidth, while
-static slices + FMA run at full speed.  FE matrices from structured meshes
-are inherently multi-diagonal (the fine bidomain operator has 21 distinct
-offsets), and AMG coarse operators stay diagonal-concentrated when coarse
-dofs are ordered by aggregate centroid.  So the device solve path stores
-every level as DIA:
+FE matrices from structured meshes are inherently multi-diagonal (the fine
+bidomain operator has 17 distinct offsets in interleaved order), and AMG
+coarse operators stay diagonal-concentrated when coarse dofs are ordered
+by aggregate centroid.  The grid and structured solve paths store every
+level as DIA:
 
     y = sum_d  data[d, :] * x_padded[PAD + offset_d : PAD + offset_d + n]
 
-— a static-offset dynamic_slice per diagonal, no gather at all.
+— a static-offset dynamic_slice per diagonal, no gather at all.  XLA
+fuses the whole sum into one loop kernel that streams the diagonal planes
+once; the SpMV is bound by memory bandwidth.
 """
 from __future__ import annotations
 
@@ -97,7 +96,7 @@ class DIA:
         return self.matvec(x)
 
     def residual(self, x, b):
-        """b - A @ x (the Pallas-backed PDIA fuses this into one launch)."""
+        """b - A @ x (XLA fuses the subtraction into the SpMV kernel)."""
         return b - self.matvec(x)
 
     def diagonal(self):
@@ -110,6 +109,13 @@ class DIA:
                    self.nnz)
 
 
+def _dia_matvec(M, x):
+    return M.matvec(x)
+
+
 def dia_matvec_op(A: DIA):
-    """Partial-wrapped matvec (krylov-compatible operator)."""
-    return jax.tree_util.Partial(lambda M, x: M.matvec(x), A)
+    """Partial-wrapped matvec (krylov-compatible operator).  The function
+    is module-level: a fresh lambda per call would give every operator
+    its own pytree structure, so each solve would trace and compile the
+    Krylov program again."""
+    return jax.tree_util.Partial(_dia_matvec, A)

@@ -405,7 +405,7 @@ def rap_unsmoothed(A: HostCSR, agg: np.ndarray, nagg: int) -> HostCSR:
 def greedy_color(A: HostCSR, max_colors=24) -> np.ndarray:
     """Greedy graph coloring of the symmetric sparsity pattern of A.
 
-    Used to build multicolor Gauss-Seidel sweeps (the TPU-parallel stand-in
+    Used to build multicolor Gauss-Seidel sweeps (the parallel stand-in
     for HAZmath's sequential SGS smoother, SURVEY.md §7 risk list).
     Returns color[i] in [0, ncolors].  Rows that would need more than
     `max_colors` colors (near-dense rows, e.g. 3D dofs coupled through a
